@@ -551,15 +551,17 @@ def subst_decode(matrix: bytes, ref_base: int, code: int) -> int:
 _NT16 = {c: i for i, c in enumerate(b"=ACMGRSVTWYHKDBN")}
 
 
+_NT16_LUT = np.full(256, 15, dtype=np.uint8)
+for _c, _i in _NT16.items():
+    _NT16_LUT[_c] = _i
+
+
 def _pack_seq(seq: bytes) -> bytes:
-    out = bytearray((len(seq) + 1) // 2)
-    for i, b in enumerate(seq):
-        code = _NT16.get(b, 15)
-        if i % 2 == 0:
-            out[i // 2] = code << 4
-        else:
-            out[i // 2] |= code
-    return bytes(out)
+    """BAM 4-bit sequence packing, two bases per byte (high nibble first)."""
+    codes = _NT16_LUT[np.frombuffer(seq, dtype=np.uint8)]
+    if len(codes) % 2:
+        codes = np.append(codes, np.uint8(0))
+    return ((codes[0::2] << 4) | codes[1::2]).astype(np.uint8).tobytes()
 
 
 def build_bam_record(name: str, flag: int, ref_id: int, pos: int, mapq: int,
@@ -569,7 +571,8 @@ def build_bam_record(name: str, flag: int, ref_id: int, pos: int, mapq: int,
                      tlen: int = 0) -> BamRecord:
     """Materialize a BAM-format payload (bam.py parse_record layout)."""
     name_b = name.encode() + b"\x00"
-    cigar_b = b"".join(struct.pack("<I", (ln << 4) | op) for op, ln in cigar)
+    ops = np.asarray(cigar, dtype=np.uint32).reshape(-1, 2)
+    cigar_b = ((ops[:, 1] << 4) | ops[:, 0]).astype("<u4").tobytes()
     seq_b = _pack_seq(seq)
     qual_b = quals if quals is not None else b"\xff" * len(seq)
     raw = struct.pack("<iiBBHHHiiii", ref_id, pos, len(name_b), mapq, 0,

@@ -1,41 +1,37 @@
 """ctypes bindings for the native marginio engine (native/marginio.cc).
 
-Falls back gracefully: `lib()` returns None when the shared library is not
-built, and callers use the pure-Python path."""
+`lib()` builds the library at first use (utils/native_build.py) and
+returns None when that fails; callers then use the pure-Python path."""
 
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
+import threading
 from typing import Dict, Optional
 
 import numpy as np
 
+from margin_tpu.utils import native_build
+
 _LIB = None
 _TRIED = False
+_LIB_LOCK = threading.Lock()
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))), "native")
 
 
 def lib() -> Optional[ctypes.CDLL]:
+    """The loaded library (built at first use), or None."""
     global _LIB, _TRIED
-    if _TRIED:
-        return _LIB
-    _TRIED = True
-    so = os.path.join(_NATIVE_DIR, "libmarginio.so")
-    if not os.path.exists(so):
-        try:  # build on demand
-            subprocess.run(["make", "-C", _NATIVE_DIR], capture_output=True,
-                           timeout=120, check=True)
-        except Exception:
-            return None
-    if not os.path.exists(so):
-        return None
-    try:
-        L = ctypes.CDLL(so)
-    except OSError:
+    with _LIB_LOCK:  # chunk threads race to the first call
+        if not _TRIED:
+            _LIB = _load()
+            _TRIED = True
+    return _LIB
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    L = native_build.load("marginio")
+    if L is None:
         return None
     L.mio_open.restype = ctypes.c_void_p
     L.mio_open.argtypes = [ctypes.c_char_p]
@@ -100,8 +96,7 @@ def lib() -> Optional[ctypes.CDLL]:
     L.mio_rle_dedup.restype = ctypes.c_int64
     L.mio_rle_dedup.argtypes = [np.ctypeslib.ndpointer(np.int64),
                                 ctypes.c_int64, ctypes.c_int64]
-    _LIB = L
-    return _LIB
+    return L
 
 
 class NativeBam:

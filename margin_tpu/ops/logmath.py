@@ -1,10 +1,10 @@
 """Log-space math: exact and LUT-interpolated logAdd.
 
 The reference computes log(exp(d)+1) with a piecewise-cubic interpolation
-(pairwiseAligner.c:279-299) to avoid transcendentals on CPU. On TPU the VPU
-evaluates exp/log1p at full rate, so the exact form is the default compute
-path; the cubic LUT form is provided for golden-parity testing against the
-reference semantics (bit-level agreement of DP recurrences requires it).
+(pairwiseAligner.c:279-299) to avoid transcendentals on CPU. Both forms are
+provided: the exact one, and the cubic LUT form that the CLI uses by
+default for agreement with the reference semantics (bit-level agreement of
+DP recurrences requires it).
 
 Both forms are jittable and accept arrays.
 """
@@ -37,8 +37,7 @@ def _lookup(x):
     (pairwiseAligner.c:282-293).
 
     The 4 coefficient rows are applied with branch-free selects, not a
-    gather: this runs inside every DP-cell logAdd, and per-element gathers
-    are ~4 orders of magnitude slower than VPU selects on TPU."""
+    gather: this runs inside every DP-cell logAdd."""
     rows = [jnp.asarray(_CUBIC[i], dtype=x.dtype) for i in range(4)]
 
     def poly(c):
@@ -68,7 +67,7 @@ def log_add_lut(x, y):
 def log_add_lut_finite(x, y):
     """log_add_lut for inputs known finite and non-NaN (DP kernels clamp
     at a finite LOG_ZERO): drops the isinf/isnan/nan_to_num guards, which
-    roughly double the VPU op count of the general form. For d >= 7.5 the
+    roughly double the op count of the general form. For d >= 7.5 the
     polynomial may overflow harmlessly — the select discards it."""
     hi = jnp.maximum(x, y)
     lo = jnp.minimum(x, y)

@@ -10,14 +10,17 @@ and accelerator runs stay consistent.
 from __future__ import annotations
 
 import ctypes
+import threading
 import os
-import subprocess
 from typing import Optional
 
 import numpy as np
 
+from margin_tpu.utils import native_build
+
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
+_LIB_LOCK = threading.Lock()
 
 _I32P = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
 _I64P = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
@@ -26,34 +29,20 @@ _F64P = np.ctypeslib.ndpointer(dtype=np.float64, flags="C_CONTIGUOUS")
 
 
 def lib() -> Optional[ctypes.CDLL]:
+    """The loaded library (built at first use), or None."""
     global _LIB, _TRIED
-    if _TRIED:
-        return _LIB
-    _TRIED = True
+    with _LIB_LOCK:  # chunk threads race to the first call
+        if not _TRIED:
+            _LIB = _load()
+            _TRIED = True
+    return _LIB
+
+
+def _load() -> Optional[ctypes.CDLL]:
     if os.environ.get("MARGIN_TPU_NATIVE_FB") == "0":
         return None
-    root = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.dirname(os.path.abspath(__file__)))), "native")
-    so = os.path.join(root, "libmarginfb.so")
-    src = os.path.join(root, "marginfb.cc")
-    stale = (not os.path.exists(so)
-             or (os.path.exists(src)
-                 and os.path.getmtime(so) < os.path.getmtime(src)))
-    if stale:
-        # rebuild on this machine (-march=native): also covers a .so
-        # shipped from a host with different ISA extensions
-        try:
-            if os.path.exists(so):
-                os.unlink(so)
-            subprocess.run(["make", "-C", root, "libmarginfb.so"],
-                           capture_output=True, timeout=120)
-        except Exception:
-            return None
-        if not os.path.exists(so):
-            return None
-    try:
-        L = ctypes.CDLL(so)
-    except OSError:
+    L = native_build.load("marginfb")
+    if L is None:
         return None
     L.mfb_posteriors.restype = ctypes.c_int64
     L.mfb_posteriors.argtypes = [
@@ -67,8 +56,7 @@ def lib() -> Optional[ctypes.CDLL]:
         ctypes.c_float,
         _I32P, ctypes.c_int64, _F64P,
     ]
-    _LIB = L
-    return _LIB
+    return L
 
 
 def posteriors_item(tables, item, expansion: int, threshold: float,

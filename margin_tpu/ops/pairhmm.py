@@ -1,12 +1,14 @@
-"""Batched 3-state pair-HMM kernels (TPU compute path).
+"""Batched 3-state pair-HMM kernels (the device compute path).
 
 The reference's hottest loop (`computeForwardProbability`,
 pairwiseAligner.c:849-903) scores one (read-substring, allele) pair at a time
-with a scalar anti-diagonal recurrence. On TPU we turn this inside out:
+with a scalar anti-diagonal recurrence. Here it is turned inside out:
 **the batch is the vector axis**. Thousands of independent pairs are padded
 to a common (Lx, Ly) box and a single `lax.scan` walks anti-diagonals d =
 0..Lx+Ly; each step updates a (B, W) slab of cells with pure elementwise
-VPU ops. For the phase workload the reference calls this kernel with an
+ops. The diagonals are short (alleles of ~30-1000 bp) and each step covers
+thousands of pairs, so a plain `lax.scan` left to XLA amortizes its
+per-step cost. For the phase workload the reference calls this kernel with an
 empty anchor list, in which case its band covers the whole DP rectangle
 (band_construct with no anchors spans (0,0)..(lX,lY)); the dense rectangle
 recurrence below is therefore *exactly* the reference computation, not an
@@ -28,7 +30,6 @@ are provided, the match emission gains
 from __future__ import annotations
 
 import functools
-import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -39,7 +40,7 @@ from margin_tpu.utils.lazyjax import jax, jnp, lazy_jit
 from margin_tpu.params import StateMachineParams, RepeatSubMatrix, MAXIMUM_REPEAT_LENGTH
 
 MATCH, GAPX, GAPY = 0, 1, 2
-LOG_ZERO = -1.0e30  # finite stand-in for -inf: keeps arithmetic NaN-free on TPU
+LOG_ZERO = -1.0e30  # finite stand-in for -inf: keeps the arithmetic NaN-free
 
 # transition vector layout (StateMachineParams.transition_vector)
 T_MM, T_M_FROM_GX, T_M_FROM_GY, T_OPEN_X, T_OPEN_Y, T_EXT_X, T_EXT_Y, T_SW_X, T_SW_Y = range(9)
@@ -273,29 +274,12 @@ def _forward_total(tables: PairHmmTables, batch: PairBatch,
     def shift_row(a):  # row y <- row y-1 (prepend LOG_ZERO row)
         return jnp.concatenate([jnp.full((1, B), neg, dtype), a[:-1]], axis=0)
 
-    # SURVEY §2.3 row 8 experiment: emission lookup as a one-hot MATMUL on
-    # the MXU (dot_general, batch=B, contraction over the 25 match codes)
-    # instead of VPU select-sums. Exactness holds either way (exactly one
-    # nonzero product per cell). Measured on v5e (PERF_NOTES "MXU emission
-    # formulation"): the one-hot materialization costs more VPU work than
-    # the selects it replaces and the 25-wide contraction fills <20% of the
-    # systolic array — kept behind MARGIN_TPU_EMIT_MXU for re-measurement.
-    emit_mxu = os.environ.get("MARGIN_TPU_EMIT_MXU") == "1"
-
     def step(carry, d):
         (p1m, p1x, p1y), (p2m, p2x, p2y), result = carry
         cx = jax.lax.dynamic_slice_in_dim(xpad, Lx + Ly - d, W, axis=0)
         cx1h = [(cx == i) for i in range(5)]
-        if emit_mxu:
-            code = cx * 5 + cy                       # (W, B)
-            onehot = jax.nn.one_hot(code, 25, axis=-1,
-                                    dtype=dtype)     # (W, B, 25)
-            e_m = jnp.einsum("wbc,bc->wb", onehot, m_tab,
-                             preferred_element_type=dtype)
-        else:
-            # gather-free emissions: one-hot select over the 5-symbol
-            # alphabet
-            e_m = sum(jnp.where(cx1h[i], m_rows[i], 0.0) for i in range(5))
+        # gather-free emissions: one-hot select over the 5-symbol alphabet
+        e_m = sum(jnp.where(cx1h[i], m_rows[i], 0.0) for i in range(5))
         e_gx = sum(jnp.where(cx1h[i], gx_rows[i], 0.0) for i in range(5))
         if use_rle:
             rxw = jax.lax.dynamic_slice_in_dim(rxpad, Lx + Ly - d, W, axis=0)

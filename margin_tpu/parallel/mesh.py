@@ -2,7 +2,7 @@
 
 The reference's parallelism is OpenMP over genomic chunks
 (phase.c:276-279); chunks are independent except for the stitching seam
-vote (SURVEY.md §2.3). The TPU-native mapping:
+vote (SURVEY.md §2.3). The device mapping:
 
   - mesh axes ("dp", "sp"): "dp" shards chunks / read groups (data
     parallel); "sp" shards the pair batch *within* a chunk (the

@@ -3,20 +3,21 @@ of per-chunk stitch summaries.
 
 SURVEY §2.3 / §7.8: the reference is single-host OpenMP; the only
 inter-chunk state its merge needs is tiny per-chunk summaries (read-name
-hap maps + switch flags, stitching.c:1573-1588). The TPU-native scale-out
+hap maps + switch flags, stitching.c:1573-1588). The scale-out here
 therefore keeps hosts embarrassingly parallel — params/reference replicated,
 the BAM chunk stream partitioned by chunk index — and uses exactly one
 collective: an all-gather of serialized chunk results riding the global
-process group (ICI/DCN), after which every host holds the full result set
+process group, after which every host holds the full result set
 and host 0 writes outputs.
 
 Usage (one process per host, same command line everywhere):
 
     margin_tpu phase ... --hosts N --host-id I --coordinator HOST:PORT
 
-On TPU pods the same flags apply with the real accelerator backend; the
-2-process CPU test (tests/test_multihost.py) asserts byte-identical outputs
-vs a single-process run.
+Each process drives its own card, so on one machine `--hosts N` needs N
+cards (one process per card); the 2-process CPU test
+(tests/test_multihost.py) asserts byte-identical outputs vs a
+single-process run.
 """
 
 from __future__ import annotations

@@ -386,5 +386,7 @@ class Params:
                 self.polish.update_from_json(v)
             elif k == "phase":
                 self.phase.update_from_json(v)
+            elif k == "assumed":
+                pass  # documentation: what the file's values rest on
             else:
                 raise ValueError(f"Unrecognised key in params json: {k}")

@@ -6,7 +6,7 @@ Parity: bubbleGraph_constructFromVCFAndBamChunkReadVcfEntrySubstrings
 (bubbleGraph.c:1281-1323); bubbleGraph_getReference (bubbleGraph.c:2446-2474)
 and bubbleGraph_getProfileSeqs (bubbleGraph.c:2356-2444).
 
-TPU design: the reference scores each (read substring x allele) pair with a
+Device design: the reference scores each (read substring x allele) pair with a
 scalar banded DP call (its hot loop #1). Here every pair in the whole chunk
 becomes one lane of a single `pairhmm.forward_total` batch — identical math
 (empty anchor band == dense rectangle), three orders of magnitude fewer

@@ -5,7 +5,7 @@ pass over the (region-filtered) BAM finds per-contig aligned extents and
 bucketed depth estimates, then emits fixed-size chunks with overlap margins
 (saveContigChunks, htsIntegration.c:151-179).
 
-TPU mapping: a chunk is the unit of data parallelism; the estimated depth
+Device mapping: a chunk is the unit of data parallelism; the estimated depth
 drives static bucketing for padded device batches.
 """
 

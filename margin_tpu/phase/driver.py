@@ -143,7 +143,8 @@ def run_phase(bam_file: str, reference_fasta: str, vcf_file: str,
     # scoring rides the socket to the device-owning parent, and importing
     # jax just to ask for a backend costs ~2 s per worker process.
     from margin_tpu.parallel import executor
-    if executor.context().mesh is None and not executor.has_ipc_client():
+    if (executor.context().mesh is None and not executor.context().pinned
+            and not executor.has_ipc_client()):
         try:
             import jax
             if jax.default_backend() != "cpu" and jax.device_count() > 1:

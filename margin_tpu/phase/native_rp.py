@@ -17,14 +17,17 @@ bit-identical under maxNotSumTransitions).
 from __future__ import annotations
 
 import ctypes
+import threading
 import os
-import subprocess
 from typing import List, Optional
 
 import numpy as np
 
+from margin_tpu.utils import native_build
+
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
+_LIB_LOCK = threading.Lock()
 
 _I32P = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
 _I64P = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
@@ -33,32 +36,20 @@ _U8P = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")
 
 
 def lib() -> Optional[ctypes.CDLL]:
+    """The loaded library (built at first use), or None."""
     global _LIB, _TRIED
-    if _TRIED:
-        return _LIB
-    _TRIED = True
+    with _LIB_LOCK:  # chunk threads race to the first call
+        if not _TRIED:
+            _LIB = _load()
+            _TRIED = True
+    return _LIB
+
+
+def _load() -> Optional[ctypes.CDLL]:
     if os.environ.get("MARGIN_TPU_NATIVE_RP") == "0":
         return None
-    root = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.dirname(os.path.abspath(__file__)))), "native")
-    so = os.path.join(root, "libmarginrp.so")
-    src = os.path.join(root, "marginrp.cc")
-    stale = (not os.path.exists(so)
-             or (os.path.exists(src)
-                 and os.path.getmtime(so) < os.path.getmtime(src)))
-    if stale:
-        try:
-            if os.path.exists(so):
-                os.unlink(so)
-            subprocess.run(["make", "-C", root, "libmarginrp.so"],
-                           capture_output=True, timeout=120)
-        except Exception:
-            return None
-        if not os.path.exists(so):
-            return None
-    try:
-        L = ctypes.CDLL(so)
-    except OSError:
+    L = native_build.load("marginrp")
+    if L is None:
         return None
     L.mrp_phase.restype = ctypes.c_int64
     L.mrp_phase.argtypes = [
@@ -70,8 +61,7 @@ def lib() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8))]
     L.mrp_free.argtypes = [ctypes.POINTER(ctypes.c_uint8)]
     L.mrp_free.restype = None
-    _LIB = L
-    return _LIB
+    return L
 
 
 class _Parser:

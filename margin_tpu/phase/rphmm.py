@@ -9,8 +9,8 @@ Design: the reference stores cells in linked lists and computes emissions
 with bit-plane popcounts (emissions.c:77-138). Here a column's cells are a
 uint64 partition vector and the emission for *all* cells of a column is one
 masked matrix product: cells-x-reads boolean matrix @ reads-x-alleles uint8
-profile matrix — the same integer arithmetic the popcounts implement, in the
-shape the MXU wants. All probabilities are float64; with the default
+profile matrix — the same integer arithmetic the popcounts implement, as
+one matrix product. All probabilities are float64; with the default
 maxNotSumTransitions=true the FB recursion is exact (+ and max only), so
 results are bit-identical to the C code.
 """

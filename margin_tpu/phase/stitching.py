@@ -7,7 +7,7 @@ read-partition records), chunkToStitch_phaseAdjacentChunks
 mergeContigChunkz (stitching.c:1413-1499) and
 outputChunkers_stitchAndTrackExtraData (stitching.c:1558-1693).
 
-TPU scale-out note: the only inter-chunk state is each chunk's two
+Scale-out note: the only inter-chunk state is each chunk's two
 (read name -> prob) maps — tiny host-side data. In the multi-host design
 these are all-gathered and the vote/merge runs identically.
 """

@@ -214,7 +214,7 @@ def run_polish(bam_file: str, reference_fasta: str, params: Params,
 
     # multi-chip: shard scoring batches over a ("dp","sp") mesh (SURVEY §2.3)
     from margin_tpu.parallel import executor
-    if executor.context().mesh is None:
+    if executor.context().mesh is None and not executor.context().pinned:
         try:
             import jax
             if jax.default_backend() != "cpu" and jax.device_count() > 1:
@@ -457,7 +457,7 @@ def run_polish_diploid(bam_file: str, reference_fasta: str, params: Params,
 
     # multi-chip: shard scoring batches over a ("dp","sp") mesh (SURVEY §2.3)
     from margin_tpu.parallel import executor
-    if executor.context().mesh is None:
+    if executor.context().mesh is None and not executor.context().pinned:
         try:
             import jax
             if jax.default_backend() != "cpu" and jax.device_count() > 1:

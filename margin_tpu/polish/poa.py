@@ -656,7 +656,7 @@ def poa_realign(reads: List[PoaRead], anchor_alignments, reference: RleString,
     The per-read banded alignments are grouped by padded shape and run as
     vmapped kernel batches — one launch per (shape, strand) group instead
     of one per read, which amortizes scan-step overhead (the bands are
-    narrow, so the sequential scan is latency-bound) and tunnel round
+    narrow, so the sequential scan is latency-bound) and launch round
     trips on accelerators. Augmentation stays strictly in read order so
     float accumulation matches the reference's sequential loop."""
     max_rc = 2

@@ -1,6 +1,6 @@
 """Numpy oracle: a direct, slow reimplementation of the reference's banded
 pair-HMM (impl/pairwiseAligner.c + impl/stateMachine.c) used to validate the
-TPU kernels cell-by-cell on small inputs.
+device kernels cell-by-cell on small inputs.
 
 Float64 throughout with the reference's cubic-LUT logAdd
 (pairwiseAligner.c:279-299), so values match the C code to rounding order.
@@ -287,3 +287,72 @@ def oracle_posteriors(sm: OracleStateMachine, sx, sy, anchors=None,
                 if p >= threshold:
                     gys.append((min(p, 1.0), x - 1, y - 1))
     return matches, gxs, gys, float(total)
+
+
+def oracle_forward_total_batch(sm_fwd: StateMachineParams,
+                               sm_rev: StateMachineParams, pairs, strands,
+                               ragged_left=None, ragged_right=None):
+    """`oracle_forward_probability` with no anchors (the full rectangle)
+    for a batch of (x, y) symbol pairs at once: the same float64 cell
+    recurrence and LUT logAdd, vectorized over the batch instead of looped
+    per pair. Returns (B,) float64 totals."""
+    B = len(pairs)
+    lxs = np.array([len(p[0]) for p in pairs])
+    lys = np.array([len(p[1]) for p in pairs])
+    LX, LY = int(lxs.max()), int(lys.max())
+    xs = np.full((B, LX + 1), 4, np.int64)
+    ys = np.full((B, LY + 1), 4, np.int64)
+    for b, (x, y) in enumerate(pairs):
+        xs[b, 1:len(x) + 1] = x
+        ys[b, 1:len(y) + 1] = y
+    st = np.asarray(strands, np.int64)
+    sms = (sm_fwd, sm_rev)
+    match = np.stack([s.match_probs for s in sms])[st]         # (B, 5, 5)
+    gapx = np.stack([s.gap_x_probs for s in sms])[st]          # (B, 5)
+    gapy = np.stack([s.gap_y_probs for s in sms])[st]
+    tr = np.stack([s.transition_vector() for s in sms])[st]    # (B, 9)
+    (t_mm, t_mgx, t_mgy, t_ox, t_oy, t_ex, t_ey, t_swx, t_swy) = tr.T
+    rl = (np.zeros(B, bool) if ragged_left is None
+          else np.asarray(ragged_left, bool))
+    rr = (np.zeros(B, bool) if ragged_right is None
+          else np.asarray(ragged_right, bool))
+    ar = np.arange(B)
+    f = np.full((LX + 1, LY + 1, 3, B), LOG_ZERO)
+    f[0, 0, MATCH] = np.where(rl, LOG_ZERO, 0.0)
+    f[0, 0, GAPX] = np.where(rl, 0.0, LOG_ZERO)
+    f[0, 0, GAPY] = f[0, 0, GAPX]
+    la = np_log_add_lut
+    for x in range(LX + 1):
+        cx = xs[:, x]
+        for y in range(LY + 1):
+            if x == 0 and y == 0:
+                continue
+            cy = ys[:, y]
+            cell = np.full((3, B), LOG_ZERO)
+            if x > 0:
+                src = f[x - 1, y]
+                ep = gapx[ar, cx]
+                cell[GAPX] = la(la(la(cell[GAPX], src[MATCH] + ep + t_ox),
+                                   src[GAPX] + ep + t_ex),
+                                src[GAPY] + ep + t_swx)
+            if x > 0 and y > 0:
+                src = f[x - 1, y - 1]
+                ep = match[ar, cx, cy]
+                cell[MATCH] = la(la(la(cell[MATCH], src[MATCH] + ep + t_mm),
+                                    src[GAPX] + ep + t_mgx),
+                                 src[GAPY] + ep + t_mgy)
+            if y > 0:
+                src = f[x, y - 1]
+                ep = gapy[ar, cy]
+                cell[GAPY] = la(la(la(cell[GAPY], src[MATCH] + ep + t_oy),
+                                   src[GAPY] + ep + t_ey),
+                                src[GAPX] + ep + t_swy)
+            f[x, y] = cell
+    end = np.where(rr[None, :],
+                   np.stack([(t_ox + t_oy) / 2.0, t_ex, t_ey]),
+                   np.stack([t_mm, t_mgx, t_mgy]))
+    fin = f[lxs, lys, :, ar].T                                   # (3, B)
+    total = np.full(B, LOG_ZERO)
+    for s in range(3):
+        total = la(total, fin[s] + end[s])
+    return total

@@ -1,6 +1,6 @@
 """Per-chunk checkpoint/resume for the phase and polish drivers.
 
-A TPU-build addition (no reference equivalent; SURVEY.md §5): long
+An addition of this build (no reference equivalent; SURVEY.md §5): long
 whole-genome runs are chunked, so a killed run can resume by replaying
 per-chunk payloads instead of recomputing them. Each chunk's payload
 (its result record, any root-VCF-entry mutations, and the RNG state after

@@ -1,7 +1,7 @@
 """Structured per-chunk / per-stage timing (SURVEY §5 tracing row).
 
 The reference only has ad-hoc wall-clock prints (phase.c:309-321,
-polish.c:508-518, getTimeDescriptorFromSeconds misc.c:13). The TPU build
+polish.c:508-518, getTimeDescriptorFromSeconds misc.c:13). This build
 replaces those with a structured profiler: every pipeline stage and every
 chunk records wall seconds into a JSON document, and an optional JAX
 profiler trace can wrap the whole run for xprof-style analysis.

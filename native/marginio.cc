@@ -13,7 +13,9 @@
 #include <condition_variable>
 #include <cstdint>
 #include <cstdio>
+#include <cstdlib>
 #include <cstring>
+#include <ctime>
 #include <deque>
 #include <map>
 #include <mutex>
@@ -23,7 +25,70 @@
 #include <vector>
 
 #include <zlib.h>
+
+#ifdef MARGIN_HAVE_LIBDEFLATE
 #include <libdeflate.h>
+#else
+// The subset of libdeflate's API this file uses, on zlib's raw deflate
+// streams (windowBits -15), for hosts without libdeflate. Compressed bytes
+// differ from libdeflate's; the decompressed content does not.
+enum { LIBDEFLATE_SUCCESS = 0, LIBDEFLATE_BAD_DATA = 1 };
+struct libdeflate_decompressor {};
+struct libdeflate_compressor { int level; };
+
+static libdeflate_decompressor* libdeflate_alloc_decompressor() {
+    return new libdeflate_decompressor();
+}
+static void libdeflate_free_decompressor(libdeflate_decompressor* d) {
+    delete d;
+}
+static int libdeflate_deflate_decompress(libdeflate_decompressor*,
+                                         const void* in, size_t in_len,
+                                         void* out, size_t out_len,
+                                         size_t* got) {
+    z_stream zs;
+    memset(&zs, 0, sizeof(zs));
+    if (inflateInit2(&zs, -15) != Z_OK) return LIBDEFLATE_BAD_DATA;
+    zs.next_in = (Bytef*)in;
+    zs.avail_in = (uInt)in_len;
+    zs.next_out = (Bytef*)out;
+    zs.avail_out = (uInt)out_len;
+    int rc = inflate(&zs, Z_FINISH);
+    *got = out_len - zs.avail_out;
+    inflateEnd(&zs);
+    return rc == Z_STREAM_END ? LIBDEFLATE_SUCCESS : LIBDEFLATE_BAD_DATA;
+}
+static libdeflate_compressor* libdeflate_alloc_compressor(int level) {
+    return new libdeflate_compressor{level};
+}
+static void libdeflate_free_compressor(libdeflate_compressor* c) {
+    delete c;
+}
+static size_t libdeflate_deflate_compress_bound(libdeflate_compressor*,
+                                                size_t n) {
+    return compressBound((uLong)n) + 64;
+}
+static size_t libdeflate_deflate_compress(libdeflate_compressor* c,
+                                          const void* in, size_t n,
+                                          void* out, size_t cap) {
+    z_stream zs;
+    memset(&zs, 0, sizeof(zs));
+    if (deflateInit2(&zs, c->level, Z_DEFLATED, -15, 8,
+                     Z_DEFAULT_STRATEGY) != Z_OK)
+        return 0;
+    zs.next_in = (Bytef*)in;
+    zs.avail_in = (uInt)n;
+    zs.next_out = (Bytef*)out;
+    zs.avail_out = (uInt)cap;
+    int rc = deflate(&zs, Z_FINISH);
+    size_t len = cap - zs.avail_out;
+    deflateEnd(&zs);
+    return rc == Z_STREAM_END ? len : 0;
+}
+static uint32_t libdeflate_crc32(uint32_t crc, const void* data, size_t n) {
+    return (uint32_t)crc32(crc, (const Bytef*)data, (uInt)n);
+}
+#endif
 
 namespace {
 
@@ -768,7 +833,7 @@ void mio_iter_destroy(MioIter* it) { delete it; }
 // their whole compressed extent up front from the BAI, so the bulk path
 // reads the compressed range with one fread and inflates every block in
 // parallel (BGZF blocks are independent deflate streams) — ~10x faster
-// per chunk prefetch, the top phase pipeline stage in BENCH_r04.
+// per chunk prefetch, a leading stage of the phase pipeline.
 
 static int io_threads() {
     static int n = [] {

@@ -7,23 +7,23 @@ import pytest
 from margin_tpu.io import bcf
 from margin_tpu.io.vcf import parse_vcf
 
-from conftest import reference_path
 
-VCF = reference_path("tests", "data", "realData",
-                     "HG002.r94g360.chr20_59M_100k.vcf")
+@pytest.fixture(scope="module")
+def vcf(sim_phase):
+    return sim_phase["vcf"]
 
 
 @pytest.fixture(scope="module")
-def bcf_path(tmp_path_factory):
+def bcf_path(tmp_path_factory, vcf):
     p = str(tmp_path_factory.mktemp("bcf") / "vars.bcf")
-    with open(VCF) as fh:
+    with open(vcf) as fh:
         bcf.vcf_to_bcf([ln.rstrip("\n") for ln in fh], p)
     assert bcf.is_bcf(p)
     return p
 
 
-def test_bcf_lines_roundtrip_core_fields(bcf_path):
-    with open(VCF) as fh:
+def test_bcf_lines_roundtrip_core_fields(bcf_path, vcf):
+    with open(vcf) as fh:
         want = [ln.rstrip("\n") for ln in fh if not ln.startswith("#")]
     got = [ln for ln in bcf.BcfReader(bcf_path).lines()
            if not ln.startswith("#")]
@@ -38,9 +38,9 @@ def test_bcf_lines_roundtrip_core_fields(bcf_path):
         assert g_gt == w_gt, (g, w)
 
 
-def test_bcf_through_vcf_loader(bcf_path):
+def test_bcf_through_vcf_loader(bcf_path, vcf):
     """parse_vcf must consume BCF transparently (bcf_open parity)."""
-    entries_v = parse_vcf(VCF, None, use_rle=False)
+    entries_v = parse_vcf(vcf, None, use_rle=False)
     entries_b = parse_vcf(bcf_path, None, use_rle=False)
     for contig in entries_v:
         ev, eb = entries_v[contig], entries_b[contig]

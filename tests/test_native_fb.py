@@ -10,8 +10,13 @@ import pytest
 from margin_tpu.ops import banded, native_fb, pairhmm
 from margin_tpu.params import Params, StateMachineParams
 
-pytestmark = pytest.mark.skipif(native_fb.lib() is None,
-                                reason="native FB library not built")
+from conftest import PARAMS
+
+
+@pytest.fixture(autouse=True)
+def _native_lib():
+    if native_fb.lib() is None:
+        pytest.skip("native FB library did not build")
 
 
 @pytest.fixture(scope="module")
@@ -22,8 +27,7 @@ def tables():
 
 @pytest.fixture(scope="module")
 def tables_rle():
-    params = Params.load(
-        "/root/reference/params/polish/ont/r9.4/allParams.np.human.r94-g344.json")
+    params = Params.load(PARAMS)
     pp = params.polish
     return pairhmm.PairHmmTables.from_params(pp.sm_forward, pp.sm_reverse,
                                              repeat=pp.repeat_sub_matrix)
@@ -144,31 +148,25 @@ def test_cpu_midsize_default_native_matches_scan(tables):
 
 
 def test_ipc_worker_local_fallback_split(tables, monkeypatch):
-    """Worker-process routing: with the segmented FB enabled (default),
-    deep production-length bands are device-eligible and EVERYTHING rides
-    the IPC socket to the parent's funnel; with segmentation disabled
-    (MARGIN_TPU_SEG_FB=0), the parent's HBM guard would bounce them, so
-    they solve on the worker's OWN native kernel and only device-eligible
-    items cross the socket (banded.py worker branch). Results land in
-    request order either way."""
-    from margin_tpu.ops import native_fb
+    """Worker-process routing: bands wider than the device kernel's 128
+    lanes solve on the worker's OWN native kernel, everything else crosses
+    the IPC socket to the parent's funnel. Results land in request
+    order either way."""
     from margin_tpu.parallel import executor
 
-    if native_fb.lib() is None:
-        pytest.skip("native fb unavailable")
     rng = np.random.default_rng(11)
-    lx = ly = 70000
+    lx = ly = 2000
     x = rng.integers(0, 4, lx).astype(np.uint8)
     y = x.copy()
     mut = rng.random(ly) < 0.1
     y[mut] = rng.integers(0, 4, mut.sum()).astype(np.uint8)
-    anchors = [(i, i, 4) for i in range(0, lx, 40)]
-    big = dict(x_sym=x, y_sym=y, anchors=anchors, strand=0)
-    small = dict(x_sym=x[:60], y_sym=y[:60], anchors=[], strand=1)
-    geom = banded.BandGeometry.build(anchors, lx, ly, 20, smooth=True)
-    d_pad = max(banded._bucket_dpad(geom.d_pad), 6144)
-    assert not banded._fits_monolithic(d_pad, 16)  # monolithic rejects it
-    assert banded._segments_fit(d_pad, 16)         # the segmented FB fits
+    # anchors every 400 bp: a band far wider than 128
+    wide = dict(x_sym=x, y_sym=y, anchors=[(i, i, 4) for i in
+                                           range(0, lx, 400)], strand=0)
+    narrow = dict(x_sym=x[:300], y_sym=y[:300],
+                  anchors=[(i, i, 4) for i in range(10, 290, 10)], strand=1)
+    assert banded._item_geom(dict(wide), 20, False).w_pad > 128
+    assert banded._item_geom(dict(narrow), 20, False).w_pad <= 128
 
     seen = []
 
@@ -183,28 +181,21 @@ def test_ipc_worker_local_fallback_split(tables, monkeypatch):
         def score(self, *a):  # pragma: no cover
             raise AssertionError
 
-    # default (segmented FB on): the deep band is device-eligible, the
-    # whole batch ships to the parent
     monkeypatch.setattr(executor, "_IPC_CLIENT", StubClient())
     try:
-        banded.banded_posteriors_many(tables, [dict(small)], 20)
-        assert seen == [1]
+        results = banded.banded_posteriors_many(
+            tables, [dict(wide), dict(narrow)], 20)
+        assert seen == [1]  # only the narrow item crossed the "socket"
         seen.clear()
-
-        # segmentation off: the worker solves the deep band locally
-        monkeypatch.setenv("MARGIN_TPU_SEG_FB", "0")
-        results = banded.banded_posteriors_many(tables, [big, small], 20)
+        banded.banded_posteriors_many(tables, [dict(narrow)], 20)
+        assert seen == [1]
     finally:
         monkeypatch.setattr(executor, "_IPC_CLIENT", None)
-    assert seen == [1]  # only the small item crossed the "socket"
-    # the big item's result matches the native kernel run directly
-    [direct_big] = banded._solve_native_items(tables, [big], 20, 0.01,
-                                              False, False)
-    (mb, gbx, gby), tb = results[0]
-    (md, gdx, gdy), td = direct_big
-    assert tb == td
-    np.testing.assert_array_equal(mb, md)
-    # the small item's result matches the scan path
-    [direct_small] = banded._posteriors_many_scan(tables, [small], 20)
-    assert results[1][1] == direct_small[1]
-    np.testing.assert_array_equal(results[1][0][0], direct_small[0][0])
+    [direct_wide] = banded._solve_native_items(tables, [wide], 20, 0.01,
+                                               False, False)
+    assert results[0][1] == direct_wide[1]
+    for a, b in zip(results[0][0], direct_wide[0]):
+        np.testing.assert_array_equal(a, b)
+    [direct_narrow] = banded._posteriors_many_scan(tables, [narrow], 20)
+    assert results[1][1] == direct_narrow[1]
+    np.testing.assert_array_equal(results[1][0][0], direct_narrow[0][0])

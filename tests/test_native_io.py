@@ -11,16 +11,21 @@ from margin_tpu.params import Params
 from margin_tpu.phase.chunker import (_construct_chunker_native,
                                       _construct_chunker_py)
 
-from conftest import reference_path
-
-BAM = reference_path("tests", "data", "realData",
-                     "HG002.r94g360.chr20_59M_100k.bam")
-
-pytestmark = pytest.mark.skipif(native.lib() is None,
-                                reason="native library not built")
+from conftest import PARAMS
 
 
-def test_native_scan_matches_python_reader():
+@pytest.fixture(autouse=True)
+def _native_lib():
+    if native.lib() is None:
+        pytest.skip("native marginio library did not build")
+
+
+@pytest.fixture(scope="module")
+def BAM(sim_phase):
+    return sim_phase["bam"]
+
+
+def test_native_scan_matches_python_reader(BAM):
     nb = native.NativeBam(BAM)
     scan = nb.scan()
     nb.close()
@@ -33,20 +38,19 @@ def test_native_scan_matches_python_reader():
         assert scan["mapq"][i] == py[i].mapq
 
 
-def test_native_fetch_matches_python_fetch():
+def test_native_fetch_matches_python_fetch(BAM):
     nb = native.NativeBam(BAM)
     n_native = sum(1 for _ in nb.fetch_raw(0, 30000, 40000))
     nb.close()
     with BamReader(BAM) as r:
-        n_py = sum(1 for _ in r.fetch("chr20", 30000, 40000))
+        n_py = sum(1 for _ in r.fetch("sim1", 30000, 40000))
     assert n_native == n_py
 
 
-def test_native_chunker_matches_python():
-    params = Params.load(reference_path("params", "phase",
-                                        "allParams.haplotag.ont-r94g507.json"))
-    a = _construct_chunker_native(BAM, None, {"chr20"}, params.polish, True)
-    b = _construct_chunker_py(BAM, None, {"chr20"}, params.polish, True)
+def test_native_chunker_matches_python(BAM):
+    params = Params.load(PARAMS)
+    a = _construct_chunker_native(BAM, None, {"sim1"}, params.polish, True)
+    b = _construct_chunker_py(BAM, None, {"sim1"}, params.polish, True)
     assert len(a.chunks) == len(b.chunks)
     for ca, cb in zip(a.chunks, b.chunks):
         assert (ca.ref_name, ca.chunk_overlap_start, ca.chunk_start,
@@ -57,7 +61,7 @@ def test_native_chunker_matches_python():
     assert a.read_enumerator == b.read_enumerator
 
 
-def test_native_haplotag_write_roundtrip(tmp_path):
+def test_native_haplotag_write_roundtrip(tmp_path, BAM):
     nb = native.NativeBam(BAM)
     names = nb.scan()["names"]
     nb.close()

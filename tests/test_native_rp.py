@@ -10,13 +10,12 @@ import pytest
 from margin_tpu.params import Params
 from margin_tpu.phase import native_rp, rphmm
 from margin_tpu.phase.bubbles import ProfileSeq, Reference, Site
-from tests.conftest import reference_path
+from tests.conftest import PARAMS
 
 
 @pytest.fixture(scope="module")
 def phase_params():
-    return Params.load(reference_path(
-        "params", "phase", "allParams.haplotag.ont-r94g507.json")).phase
+    return Params.load(PARAMS).phase
 
 
 def _make_case(rng, n_sites, n_reads, max_alleles=3):

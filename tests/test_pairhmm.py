@@ -11,7 +11,7 @@ from margin_tpu.ops import pairhmm
 from margin_tpu.params import Params, StateMachineParams
 from margin_tpu.testing import oracle
 
-from conftest import reference_path
+from conftest import PARAMS
 
 
 def _random_pair(rng, lmin=5, lmax=40, mutate=0.12):
@@ -36,7 +36,7 @@ def _random_pair(rng, lmin=5, lmax=40, mutate=0.12):
 
 @pytest.fixture(scope="module")
 def base_params():
-    return Params.load(reference_path("params", "base_params.json"))
+    return Params.load(PARAMS)
 
 
 def test_forward_total_matches_oracle_default_sm(base_params):
@@ -101,8 +101,7 @@ def test_forward_total_with_ns():
 def test_forward_total_rle_emissions():
     """RLE mode: match emissions get the repeat-count addend
     (stateMachine.c:733-738)."""
-    p = Params.load(reference_path("params", "polish", "ont", "r9.4",
-                                   "allParams.np.human.r94-g360.json"))
+    p = Params.load(PARAMS)
     rng = np.random.default_rng(11)
     sm_f, sm_r = p.polish.sm_forward, p.polish.sm_reverse
     rm = p.polish.repeat_sub_matrix

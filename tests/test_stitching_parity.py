@@ -9,7 +9,7 @@ import pytest
 from margin_tpu.params import Params
 from margin_tpu.polish import stitcher
 
-from conftest import reference_path
+from conftest import PARAMS
 
 
 @pytest.fixture(autouse=True)
@@ -26,8 +26,7 @@ def test_stitching_roundtrip():
     regardless of processing order, which the stitcher sorts by ordinal."""
     stitcher.set_pairwise_aligner_kmer_size(2)
     stitcher.set_min_overlap_anchor_pairs(1)
-    params = Params.load(reference_path("params", "polish", "ont", "r9.4",
-                                        "allParams.np.human.r94-g344.json"))
+    params = Params.load(PARAMS)
     params.polish.useRunLengthEncoding = False
     params.polish.chunkBoundary = 3
 
@@ -45,8 +44,8 @@ def test_stitching_roundtrip():
 
 def test_merge_contig_chunks():
     """test_mergeContigChunks (stitchingTest.c:148-160): boundary 16."""
-    params = Params.load(reference_path("params", "polish", "misc",
-                                        "allParams.no_rle.json"))
+    params = Params.load(PARAMS)
+    params.polish.useRunLengthEncoding = False
     params.polish.chunkBoundary = 16
     chunks = [
         "A" * 32 + "C" * 16,

@@ -8,7 +8,7 @@ from margin_tpu.io.vcf_writer import _to_phred, write_phased_vcf
 from margin_tpu.params import Params
 from margin_tpu.rle import RleString
 
-from conftest import reference_path
+from conftest import PARAMS
 
 HEADER = """##fileformat=VCFv4.2
 ##contig=<ID=chr1>
@@ -39,8 +39,7 @@ def _write_input(tmp_path, body, samples="S1"):
 
 @pytest.fixture(scope="module")
 def params():
-    return Params.load(reference_path("params", "phase",
-                                      "allParams.phase_vcf.ont.json"))
+    return Params.load(PARAMS)
 
 
 def test_to_phred_clamps():
